@@ -1,6 +1,6 @@
 // tpurt native host components: fast Wavefront OBJ parsing and SAH BVH
 // construction. These are the host-side hot paths (the reference keeps
-// them in C++ too: src/readobj.hpp); the TPU compute path stays in
+// them in C++ too: src/readobj.hpp); the device compute path stays in
 // JAX/XLA. Exposed as a plain C ABI for ctypes.
 //
 // Semantics mirror tpurt/accel/bvh.py and tpurt/scene/obj.py exactly:

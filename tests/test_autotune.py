@@ -1,6 +1,6 @@
-"""Autotuner plumbing (tpurt/autotune.py): the sweep that must work
-first-try on a v5p runs end-to-end off-chip (tiny shapes; the chosen
-values are meaningless on CPU — only the machinery is under test)."""
+"""Autotuner plumbing (tpurt/autotune.py): the sweep runs end-to-end on
+the CPU (tiny shapes; the chosen values are meaningless on CPU — only
+the machinery is under test)."""
 
 import json
 import os
@@ -21,8 +21,7 @@ def test_autotune_quick_sweep_and_cache(tmp_path, monkeypatch):
                        max_bounces=2, rays_per_batch=256,
                        pixels_per_lane=2, compaction_threshold=0)
     # Two-value axes keep the CPU sweep to a few compiles. node_arity
-    # exercises the freeze-time rebuild path (the bank layout axis the
-    # round-4 descent shipped through).
+    # exercises the freeze-time rebuild path (the bank layout axis).
     monkeypatch.setattr(autotune, "AXES", (
         ("node_arity", (8, 4)),
         ("mega_tail_passes", (1, 2)),
@@ -32,7 +31,7 @@ def test_autotune_quick_sweep_and_cache(tmp_path, monkeypatch):
 
     # Register restore-to-default for every global apply() touches so
     # later tests in the session see the shipped layout again.
-    for name in ("MEGA_BLOCK_LANES", "MEGA_BF16_BOUNDS", "MEGA_LEAF_TRIS",
+    for name in ("MEGA_BF16_BOUNDS", "MEGA_LEAF_TRIS",
                  "MEGA_NODE_ARITY", "MEGA_MAT_PRUNE"):
         monkeypatch.setattr(_c, name, getattr(_c, name))
 

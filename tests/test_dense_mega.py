@@ -1,9 +1,13 @@
 """Dense megakernel (mega_dense=True): the fused Plücker sweep engine.
 
-The TPU-native counterpart of the reference's UseBVH=false brute-force
-mode (the per-mesh dense triangle loop, Trace.cl:276-317 + 444-482):
-each megakernel iteration resolves every live lane's whole current
-chain entry with one MXU sweep (render/plucker_fused.py).
+The data-parallel counterpart of the reference's UseBVH=false
+brute-force mode (the per-mesh dense triangle loop, Trace.cl:276-317 +
+444-482): each megakernel iteration resolves every live lane's whole
+current chain entry with one sweep (render/plucker_fused.py).
+
+The sweep has two forms of one function: the Triton-route Pallas kernel
+(tested here in interpret mode) and the plain jnp reference. They must
+pick the same winning column; t agrees within f32 summation order.
 
 Contract (same as dense_engine="plucker"): winner ACCEPTANCE is
 Plücker-precision — u/v/t within ~1 ulp of the sequential math, so
@@ -17,13 +21,11 @@ per-triangle Möller-Trumbore below.
 import numpy as np
 import pytest
 
-pytestmark = pytest.mark.slow  # compile-heavy (see pyproject addopts)
-
 import jax.numpy as jnp
 
 from tpurt.config import RenderConfig
 from tpurt.core import v3 as v3lib
-from tpurt.render.renderer import render_frame
+from tpurt.render import plucker_fused as pf
 from tpurt.scene.presets import default_scene
 
 
@@ -35,19 +37,65 @@ def _cfg(**kw):
     return RenderConfig(**base)
 
 
+def _rays(r, seed=0, dist=200.0, spread=30.0):
+    """r rays from around (0, 0, -dist) aimed at random points near the
+    origin, as V3 pairs plus their (r, 3) rows."""
+    rng = np.random.default_rng(seed)
+    lo_r = (np.array([[0, 0, -dist]], np.float32)
+            + rng.standard_normal((r, 3)).astype(np.float32) * 5)
+    tgt = rng.standard_normal((r, 3)).astype(np.float32) * spread
+    ld_r = tgt - lo_r
+    ld_r /= np.linalg.norm(ld_r, axis=1, keepdims=True)
+    lo = v3lib.from_rows(jnp.asarray(lo_r))
+    ld = v3lib.from_rows(jnp.asarray(ld_r))
+    return lo, ld, lo_r, ld_r
+
+
+def _both(lo, ld, entry, table):
+    """(kernel, reference) results of one sweep as numpy pairs."""
+    feats = pf.ray_features(lo, ld)
+    k = pf.sweep_entry_kernel(feats, entry, table, interpret=True)
+    r = pf.sweep_entry_reference(feats, entry, table)
+    return tuple(map(np.asarray, k)), tuple(map(np.asarray, r))
+
+
+def _assert_same_winner(k, r, rtol=1e-6):
+    (kt, kc), (rt, rc) = k, r
+    np.testing.assert_array_equal(kc, rc)
+    hit = kc >= 0
+    np.testing.assert_array_equal(np.isinf(kt), ~hit)
+    np.testing.assert_allclose(kt[hit], rt[hit], rtol=rtol)
+
+
+def _single_tri_table(tris, normals=None, cull=None, entry=None):
+    """Sweep table over hand-made triangles ((T, 3, 3) vertices)."""
+    tris = np.asarray(tris, np.float32)
+    t = tris.shape[0]
+    if normals is None:
+        n = np.cross(tris[:, 1] - tris[:, 0], tris[:, 2] - tris[:, 0])
+        normals = np.repeat(n[:, None], 3, axis=1)
+    normals = np.asarray(normals, np.float32)
+    return pf.table_from_soup(
+        tris[:, 0], tris[:, 1], tris[:, 2],
+        normals[:, 0], normals[:, 1], normals[:, 2],
+        ids=list(range(t)), owner=[0] * t,
+        entry=entry if entry is not None else [0] * t,
+        cull=cull if cull is not None else [1] * t,
+    )
+
+
 def test_dense_table_routing():
     """Every chain entry's triangles land in the table exactly once,
     tagged with the right owner/entry/cull."""
-    from tpurt.render.plucker_fused import build_dense_table
-
     cfg = _cfg()
     scene, _, _ = default_scene(cfg)
-    table = build_dense_table(scene)
-    ids = np.asarray(table.ids)[0]
-    ent = np.asarray(table.entry)[0]
-    own = np.asarray(table.owner)[0]
+    table = pf.build_dense_table(scene)
+    ids = np.asarray(table.ids)
+    ent = np.asarray(table.entry)
+    own = np.asarray(table.owner)
     live = ids >= 0
     assert table.count == live.sum()
+    assert ids.shape[0] % pf.TRI_CHUNK == 0
     for e, members in enumerate(scene.mega_chain_members):
         want = []
         for i in members:
@@ -60,36 +108,105 @@ def test_dense_table_routing():
     assert (ent[~live] == -1).all()
 
 
+@pytest.mark.parametrize("lanes", [pf.RAY_BLOCK, 200, 3 * pf.RAY_BLOCK])
+def test_sweep_kernel_matches_reference(lanes):
+    """Kernel (interpret mode) and jnp reference pick the same winner
+    column per lane, including lane counts that are not a multiple of
+    the kernel's ray block (the wrapper pads them)."""
+    scene, _, _ = default_scene(_cfg())
+    table = pf.build_dense_table(scene)
+    lo, ld, _, _ = _rays(lanes)
+    k, r = _both(lo, ld, jnp.zeros((lanes,), jnp.int32), table)
+    assert (k[1] >= 0).sum() > lanes // 4, "test rays barely hit the mesh"
+    _assert_same_winner(k, r)
+
+
+def test_sweep_ragged_triangle_count_pads_inert():
+    """A triangle count that is not a multiple of the table alignment:
+    the pad columns never win, and rays that miss the real triangles
+    report (inf, -1)."""
+    tris = [[[-10, -10, 0], [10, -10, 0], [0, 10, 0]]] * 3
+    table = _single_tri_table(tris)
+    assert table.count == 3 and table.entry.shape[0] % pf.TRI_CHUNK == 0
+    # Front-facing hit, a ray pointing away, a ray beside the mesh.
+    lo = v3lib.from_rows(jnp.asarray(
+        [[0, 0, 50], [0, 0, 50], [500, 500, 50]], jnp.float32))
+    ld = v3lib.from_rows(jnp.asarray(
+        [[0, 0, -1], [0, 0, 1], [0, 0, -1]], jnp.float32))
+    k, r = _both(lo, ld, jnp.zeros((3,), jnp.int32), table)
+    _assert_same_winner(k, r)
+    assert k[1].tolist() == [0, -1, -1]
+    np.testing.assert_allclose(k[0][0], 50.0, rtol=1e-6)
+
+
+def test_sweep_tie_break_lowest_column():
+    """Coincident triangles give equal t: the LOWEST column wins (the
+    reference's strict-< update in index order, Trace.cl:352-357),
+    also when the duplicates straddle in-kernel triangle chunks and
+    other chain entries sit in front of them."""
+    tri = [[-10, -10, 0], [10, -10, 0], [0, 10, 0]]
+    near = [[-10, -10, 5], [10, -10, 5], [0, 10, 5]]
+    c = pf.TRI_CHUNK
+    tris = [near] * 2 + [tri] * (c + 3)
+    entry = [1, 1] + [0] * (c + 3)
+    table = _single_tri_table(tris, entry=entry)
+    lo = v3lib.from_rows(jnp.asarray([[0, 0, 50]] * 2, jnp.float32))
+    ld = v3lib.from_rows(jnp.asarray([[0, 0, -1]] * 2, jnp.float32))
+    k, r = _both(lo, ld, jnp.asarray([0, 1], jnp.int32), table)
+    _assert_same_winner(k, r)
+    assert k[1].tolist() == [2, 0]
+
+
+def test_sweep_backface_cull_and_orient():
+    """cull=1 rejects hits on the back of the face, where 'back' follows
+    the authored normals (orient), not the winding; cull=0 accepts both
+    sides."""
+    tri = [[-10, -10, 0], [10, -10, 0], [0, 10, 0]]  # winding normal +z
+    up = [[0, 0, 1]] * 3
+    down = [[0, 0, -1]] * 3
+    from_below = (jnp.asarray([[0, 0, -50]], jnp.float32),
+                  jnp.asarray([[0, 0, 1]], jnp.float32))
+    from_above = (jnp.asarray([[0, 0, 50]], jnp.float32),
+                  jnp.asarray([[0, 0, -1]], jnp.float32))
+    cases = [
+        # (normals, cull, ray, expect hit)
+        (up, 1, from_above, True),
+        (up, 1, from_below, False),
+        (down, 1, from_above, False),
+        (down, 1, from_below, True),
+        (up, 0, from_below, True),
+        (down, 0, from_above, True),
+    ]
+    for normals, cull, (o, d), expect in cases:
+        table = _single_tri_table([tri], normals=[normals], cull=[cull])
+        k, r = _both(v3lib.from_rows(o), v3lib.from_rows(d),
+                     jnp.zeros((1,), jnp.int32), table)
+        _assert_same_winner(k, r)
+        assert (k[1][0] == 0) == expect, (normals, cull, o)
+
+
 def test_fused_sweep_matches_exact_mt():
     """The sweep's winner (t, column) against a per-triangle exact MT
     fold in index order — the reference's strict-< dense loop
     semantics (Trace.cl:352-357). t within Plücker precision; the
     winning COLUMN must match exactly."""
     import tpurt.render.intersect as I
-    from tpurt.render.plucker_fused import build_dense_table, sweep_entry_local
 
     cfg = _cfg()
     scene, _, _ = default_scene(cfg)
-    table = build_dense_table(scene)
+    table = pf.build_dense_table(scene)
 
     r = 128
-    rng = np.random.default_rng(0)
-    lo_r = (np.array([[0, 0, -200]], np.float32)
-            + rng.standard_normal((r, 3)).astype(np.float32) * 5)
-    tgt = rng.standard_normal((r, 3)).astype(np.float32) * 30
-    ld_r = tgt - lo_r
-    ld_r /= np.linalg.norm(ld_r, axis=1, keepdims=True)
-    lo = v3lib.from_rows(jnp.asarray(lo_r))
-    ld = v3lib.from_rows(jnp.asarray(ld_r))
-    t, col = sweep_entry_local(lo, ld, jnp.zeros((r,), jnp.int32), table)
+    lo, ld, lo_r, ld_r = _rays(r)
+    t, col = pf.sweep_entry_local(lo, ld, jnp.zeros((r,), jnp.int32), table)
     t, col = np.asarray(t), np.asarray(col)
 
-    ids = np.asarray(table.ids)[0]
-    ent = np.asarray(table.entry)[0]
-    cull = np.asarray(table.cull)[0]
+    ids = np.asarray(table.ids)
+    ent = np.asarray(table.entry)
+    cull = np.asarray(table.cull)
     best_t = np.full(r, np.inf)
     best_col = np.full(r, -1)
-    for c in range(table.ids.shape[1]):
+    for c in range(ids.shape[0]):
         if ids[c] < 0 or ent[c] != 0:
             continue
         tri = ids[c]
@@ -114,12 +231,48 @@ def test_fused_sweep_matches_exact_mt():
     np.testing.assert_allclose(t[both], best_t[both], rtol=3e-5, atol=1e-5)
 
 
+@pytest.mark.gpu
+def test_sweep_kernel_compiled_matches_reference(gpu):
+    """The compiled Triton kernel on the card against the reference at
+    the teapot's widths (6,144 triangles, 230,400 lanes would take the
+    chip smoke's budget; 16,384 lanes here)."""
+    import jax
+
+    from tpurt.scene import procedural
+    from tpurt.scene.builder import Material, SceneBuilder
+    from tpurt.scene.types import MaterialType
+
+    b = SceneBuilder()
+    pos, nrm = procedural.torus_knot(segments=96, sides=32, radius=80.0,
+                                     tube=22.0)
+    mesh = b.add_triangles(pos, nrm)
+    mesh.material = Material(type=MaterialType.SOLID)
+    b.add_mesh(mesh)
+    table = pf.build_dense_table(b.freeze())
+    lanes = 16384
+    lo, ld, _, _ = _rays(lanes, dist=300.0, spread=60.0)
+    feats = pf.ray_features(lo, ld)
+    entry = jnp.zeros((lanes,), jnp.int32)
+    with jax.default_device(gpu):
+        k = jax.jit(pf.sweep_entry_kernel)(feats, entry, table)
+        r = jax.jit(pf.sweep_entry_reference)(feats, entry, table)
+    kt, kc = map(np.asarray, k)
+    rt, rc = map(np.asarray, r)
+    assert (kc >= 0).mean() > 0.25
+    # Knife-edge winners may differ between the two summation orders.
+    assert (kc == rc).mean() > 0.999
+    same = (kc == rc) & (kc >= 0)
+    np.testing.assert_allclose(kt[same], rt[same], rtol=1e-5)
+
+
+@pytest.mark.slow
 def test_dense_mega_matches_bvh_mega():
     """Full frames: dense engine vs the BVH megakernel on the default
     preset (lit Cornell + transformed sphere). Identical uint8 frames
     up to isolated knife-edge pixels (sweep-precision winner choice).
     Compared TONEMAPPED (the display artifact; render_frame returns
     linear radiance whose mean is ~0.06 on this scene)."""
+    from tpurt.render.renderer import render_frame
     from tpurt.render.tonemap import tonemap
 
     cfg = _cfg(width=48, height=48, rays_per_pixel=4, max_bounces=6,
@@ -140,9 +293,11 @@ def test_dense_mega_matches_bvh_mega():
     assert abs(ref.mean() - out.mean()) < 0.02 * max(ref.mean(), 1.0)
 
 
+@pytest.mark.slow
 def test_dense_mega_quota_and_staged():
     """The dense engine composes with the quota (pixels_per_lane) and
     staged-compaction machinery: same frame as the plain dense run."""
+    from tpurt.render.renderer import render_frame
     from tpurt.render.tonemap import tonemap
 
     cfg = _cfg(rays_per_batch=128)

@@ -1,4 +1,4 @@
-"""Select-chain cliff guard (round-2 VERDICT item 8).
+"""Select-chain cliff guard.
 
 Parameter fetches (chain transforms, materials, static roots) are
 unrolled broadcast-select chains below SELECT_GATHER_THRESHOLD

@@ -1,8 +1,8 @@
-"""Multi-host (DCN) smoke test: two real processes initialise
+"""Multi-host smoke test: two real processes initialise
 jax.distributed against a local coordinator, form a global 2-device CPU
 mesh, and run a psum across process boundaries — proving the CLI's
 --coordinator/--num-processes/--process-id wiring drives actual
-cross-process collectives (the DCN story in parallel/mesh.py)."""
+cross-process collectives (the multi-host story in parallel/mesh.py)."""
 
 import os
 import socket
@@ -17,20 +17,12 @@ _CHILD = r"""
 import sys
 import jax
 jax.config.update("jax_platforms", "cpu")
-try:  # CPU executables cache persistently; first run pays the compile
-    jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 5)
-except Exception:
-    pass
 coordinator, num, pid = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
 jax.distributed.initialize(coordinator_address=coordinator,
                            num_processes=num, process_id=pid)
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
-try:
-    from jax import shard_map
-except ImportError:
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 devs = jax.devices()
 assert len(devs) == num, f"global devices {len(devs)} != {num}"
@@ -57,11 +49,6 @@ _CHILD_RENDER = r"""
 import sys
 import jax
 jax.config.update("jax_platforms", "cpu")
-try:  # CPU executables cache persistently; first run pays the compile
-    jax.config.update("jax_compilation_cache_dir", "/root/.cache/jax_comp")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 5)
-except Exception:
-    pass
 coordinator, num, pid = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
 jax.distributed.initialize(coordinator_address=coordinator,
                            num_processes=num, process_id=pid)
@@ -129,7 +116,7 @@ def test_two_process_dcn_psum(tmp_path):
 
 @pytest.mark.timeout(1200)
 def test_two_process_dcn_sharded_render():
-    """The full DCN story: two real processes (2 CPU devices each) form
+    """The full multi-host story: two real processes (2 CPU devices each) form
     a 4-device global mesh and run render_frame_sharded through the
     megakernel flat path — output all_gathered over the tile axis so
     every host holds the frame — bitwise vs the single-chip render

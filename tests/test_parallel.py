@@ -118,8 +118,8 @@ def test_graft_dryrun_multichip():
 @requires_8
 def test_sharding_efficiency_branch_runs():
     """bench.run_sharding_efficiency's MEASURING branch (the >=2-device
-    code that must work first-try on a v5p-8, BASELINE.md:29) end to
-    end on the virtual mesh: the number is meaningless off-chip, but a
+    code, BASELINE.md) end to end on the virtual mesh: the number is
+    meaningless on the CPU, but a
     finite efficiency proves the plumbing — warmup, timed sharded
     renders, the efficiency arithmetic."""
     import sys, os

@@ -65,7 +65,7 @@ def _render(scene, cam, cfg):
             camera=camera, width=W, height=H,
             rays_per_pixel=cfg.rays_per_pixel, max_bounces=cfg.max_bounces,
             seed_mode=cfg.seed_mode, invisible_budget=cfg.invisible_budget,
-            subpixel_jitter=False, body_backend="xla", pixels_per_lane=P,
+            subpixel_jitter=False, pixels_per_lane=P,
         )
 
     coords = jnp.asarray([0, 0, 0], jnp.int32)
@@ -84,38 +84,3 @@ def test_root_expand_bitwise_and_fewer_iters(monkeypatch):
     assert s_off == s_on
     assert np.array_equal(m_off, m_on)
     assert it_on < it_off
-
-
-def test_root_expand_pallas_interpret_matches_xla():
-    """The SMEM-scalar form of the expansion (Pallas body) must agree
-    with the jnp form (XLA body) exactly in interpret mode. Interpret
-    mode replays the whole body per loop iteration in numpy, so the
-    shape is TINY: a 32x16 frame over an icosphere(1) (80 tris = 10
-    leaf rows, so the mesh root is still a node row that expands)."""
-    w, h, p = 32, 16, 2
-    scene, cam, cfg = _scene(subdiv=1)
-    batch = (w * h) // p
-
-    @functools.partial(jax.jit, static_argnames=("b", "backend"))
-    def run(scene, camera, coords, *, b, backend):
-        from tpurt.render.megakernel import run_megakernel
-
-        xs, ys, pix = _flat_coords(coords, b, w, h)
-        uv = pixel_uv(xs, ys, w, h)
-        ro0, rd0 = make_ray(camera, uv)
-        return run_megakernel(
-            scene, ro0, rd0, pix, coords[1], sample_offset=coords[2],
-            camera=camera, width=w, height=h,
-            rays_per_pixel=cfg.rays_per_pixel, max_bounces=cfg.max_bounces,
-            seed_mode=cfg.seed_mode, invisible_budget=cfg.invisible_budget,
-            subpixel_jitter=False, body_backend=backend, pixels_per_lane=p,
-        )
-
-    from tpurt.render.megakernel import _chain_params
-
-    assert any(_chain_params(scene).expand), "scene root must expand"
-    coords = jnp.asarray([0, 0, 0], jnp.int32)
-    m_x, s_x, _ = run(scene, cam, coords, b=batch, backend="xla")
-    m_p, s_p, _ = run(scene, cam, coords, b=batch, backend="pallas")
-    assert float(s_x) == float(s_p)
-    assert np.array_equal(np.asarray(m_x), np.asarray(m_p))

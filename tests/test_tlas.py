@@ -1,4 +1,4 @@
-"""Instance-level acceleration (TLAS, round-5 VERDICT item 2).
+"""Instance-level acceleration (TLAS).
 
 Above config.MEGA_TLAS_THRESHOLD instanced meshes, freeze routes them
 through instance ROWS in the mega bank under a world-space top-level

@@ -1,11 +1,11 @@
-"""tpurt — a TPU-native Monte-Carlo path-tracing framework.
+"""tpurt — a Monte-Carlo path-tracing framework in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 TheSovietPancakes/ripoff-raytracer (a C++17 + OpenCL multi-GPU tile
 path tracer). Everything device-side is pure-functional SPMD: the scene
-is an immutable struct-of-arrays pytree in HBM, a render is a jitted
-function ``(scene, camera, config, frame) -> image`` and multi-chip
-distribution is ``shard_map`` over a device mesh instead of host
+is an immutable struct-of-arrays pytree in device memory, a render is a
+jitted function ``(scene, camera, config, frame) -> image`` and
+multi-device distribution is ``shard_map`` over a device mesh instead of host
 threads + mutexes (reference: src/image.hpp:280-350).
 
 Layer map (mirrors SURVEY.md §1 of the reference):

@@ -33,7 +33,7 @@ Instead of translating the reference's per-thread traversal stack
 depth-first threading: on AABB hit continue at the first child, on miss
 (or after a leaf) continue at a skip link. Traversal then needs one
 int32 cursor per ray — no scatter, no per-lane stack — which is what a
-VPU wants.
+wide data-parallel lane loop wants.
 """
 
 from __future__ import annotations
@@ -147,7 +147,7 @@ def _split(
     when the SAH cost test declines (midpoint of the longest axis, then
     a median split if the midpoint degenerates). The reference has no
     cap — its cost cutoff can leave arbitrarily fat leaves — but the
-    TPU traversal wants a bound: leaf size feeds a masked per-lane loop
+    lane-parallel traversal wants a bound: leaf size feeds a masked per-lane loop
     and an 8-bit packed-node field. Image output never depends on BVH
     shape, only speed does.
     """

@@ -1,24 +1,21 @@
-"""First-run autotuner: re-derive the engine knob set on a new chip.
+"""Autotuner: derive the engine knob set on a new device.
 
-The shipped defaults (block 4096, interleave 4, tail_passes 3, P=8,
-uint8 bounds, default scoped VMEM) are a MEASURED v5e local optimum
-(notes/tpu_measurements.md, probes r27-r40). A v5p has different
-VMEM/HBM/FLOP ratios, so its optimum will sit elsewhere on the same
-axes. This module re-runs the measurement: coordinate descent over the
-knob axes on a headline-shaped workload, one steady-state timed block
-per leg (bench.time_render_flat's methodology), results cached per
-platform so the sweep runs once per chip generation.
+The engine's knobs (bank layout, interleave, tail passes, pixel quota,
+bounds format, material pruning) trade loop iterations against body
+size, and where the optimum sits depends on the device. This module
+measures it: coordinate descent over the knob axes on a
+headline-shaped workload, one steady-state timed block per leg
+(bench.time_render_flat's methodology), results cached per platform so
+the sweep runs once per device generation.
 
-    python -m tpurt.autotune            # full sweep (~1-2 h cold: each
-                                        # leg recompiles Mosaic shapes)
+    python -m tpurt.autotune            # full sweep (each leg compiles)
     python -m tpurt.autotune --quick    # interleave + tail passes only
     python bench.py --tuned             # apply the cached knob set
 
-The tuned values feed RenderConfig fields verbatim; MEGA_BLOCK_LANES /
-bounds format are config-module tunables applied via apply(). Off-TPU
-the numbers are meaningless — the CPU path exists to smoke the
-plumbing (tests/test_autotune.py) so the sweep works first-try on real
-hardware.
+The tuned values feed RenderConfig fields verbatim; the bank layout and
+bounds format are config-module tunables applied via apply(). On the
+CPU the numbers are meaningless — the CPU path exists to smoke the
+plumbing (tests/test_autotune.py).
 """
 
 from __future__ import annotations
@@ -31,22 +28,18 @@ from typing import Optional
 
 import numpy as np
 
-#: Axes swept, in descent order (most impactful first, per the round-4
-#: probe ledger: the narrow-bank descent notes/tpu_measurements.md
-#: r59b-r68 — bank layout (arity x leaf, which together derive the row
-#: width W at freeze: u8 node rows need 7+3*arity words, leaf rows
-#: 1+21*leaf) dominates, then tail passes, then the scheduler knobs).
-#: Values are candidates; the current best of every other axis is held
-#: while one axis sweeps. The descent SEEDS from the shipped config
-#: (the config-module defaults), so on a new chip the sweep starts in
-#: the known v5e optimum's neighbourhood and explores outward.
+#: Axes swept, in descent order: bank layout first (arity x leaf, which
+#: together derive the row width W at freeze: u8 node rows need
+#: 7+3*arity words, leaf rows 1+21*leaf), then tail passes, then the
+#: scheduler knobs. Values are candidates; the current best of every
+#: other axis is held while one axis sweeps. The descent SEEDS from the
+#: shipped config (the config-module defaults) and explores outward.
 AXES = (
     ("node_arity", (4, 8, 16, 32)),
     ("leaf_tris", (2, 3, 4, 5, 8)),
     ("mega_tail_passes", (3, 4, 5, 6)),
     ("mega_interleave", (1, 2, 4, 8)),
     ("pixels_per_lane", (4, 8, 16)),
-    ("block_lanes", (2048, 4096, 8192)),
     ("bounds_fmt", ("u8", "bf16")),
     ("mat_prune", (True, False)),
 )
@@ -58,9 +51,8 @@ _CFG_FIELDS = {"mega_tail_passes", "mega_interleave", "pixels_per_lane"}
 _FREEZE_AXES = {"bounds_fmt", "leaf_tris", "node_arity"}
 #: Axes read from config-module globals at TRACE time without entering
 #: any jit cache key: mutating them silently reuses the stale
-#: executable, so these legs clear the jit caches around the trial
-#: (ADVICE r4: the block_lanes sweep timed the identical program).
-_TRACE_GLOBAL_AXES = {"block_lanes", "mat_prune"}
+#: executable, so these legs clear the jit caches around the trial.
+_TRACE_GLOBAL_AXES = {"mat_prune"}
 
 
 def cache_path(platform: str) -> str:
@@ -87,8 +79,6 @@ def apply(knobs: dict, cfg):
     survive knob renames."""
     import tpurt.config as _c
 
-    if "block_lanes" in knobs:
-        _c.MEGA_BLOCK_LANES = int(knobs["block_lanes"])
     updates = {k: knobs[k] for k in _CFG_FIELDS if k in knobs}
     if "bounds_fmt" in knobs:
         # Scene freeze reads the format; the sweep re-freezes per value.
@@ -134,23 +124,19 @@ def sweep(cfg=None, scene_kind: str = "bunny", quick: bool = False,
           log=print) -> dict:
     """Coordinate descent over AXES; returns the winning knob dict
     (including its measured seconds/frame). Each leg is a fresh steady
-    block; a leg that fails to compile (e.g. a block size past the
-    scoped-VMEM ceiling) is recorded as inf and skipped."""
+    block; a leg that fails to compile (e.g. for want of device memory)
+    is logged and skipped."""
     import jax
 
     from tpurt.config import RenderConfig
     import tpurt.config as _c
 
     if cfg is None:
-        # Seed the descent from the SHIPPED v5e config (bench common):
-        # on a new chip the sweep starts in the known optimum's
-        # neighbourhood and explores outward, instead of re-climbing
-        # from the RenderConfig defaults. mega_frames_per_batch=2
-        # because that is the workload bench SHIPS for the headline —
-        # sweeping unpacked once selected a leaf4/W80 bank that OOM'd
-        # the scoped-VMEM ceiling the moment bench added the pack's 16
-        # quota slots (measured on v5e); the tuner must price knobs
-        # under the slot pressure they will actually run with.
+        # Seed the descent from the bench's knob set (bench common)
+        # instead of re-climbing from the RenderConfig defaults.
+        # mega_frames_per_batch=2 because that is the workload bench
+        # runs for the headline: the tuner must price knobs under the
+        # quota-slot pressure they will actually run with.
         cfg = RenderConfig(width=1920, height=1080, rays_per_pixel=8,
                            max_bounces=4, seed_mode="reference",
                            pixels_per_lane=8, mega_interleave=4,
@@ -160,7 +146,6 @@ def sweep(cfg=None, scene_kind: str = "bunny", quick: bool = False,
         "mega_tail_passes": cfg.mega_tail_passes,
         "mega_interleave": cfg.mega_interleave,
         "pixels_per_lane": cfg.pixels_per_lane,
-        "block_lanes": int(getattr(_c, "MEGA_BLOCK_LANES", 4096)),
         "bounds_fmt": "bf16" if getattr(_c, "MEGA_BF16_BOUNDS", False) else "u8",
         "leaf_tris": int(getattr(_c, "MEGA_LEAF_TRIS", 3)),
         "node_arity": int(getattr(_c, "MEGA_NODE_ARITY", 8)),
@@ -202,7 +187,7 @@ def sweep(cfg=None, scene_kind: str = "bunny", quick: bool = False,
             jax.clear_caches()
     # Restore every config-module tunable to the winning set (a losing
     # trial otherwise leaves its value behind for any in-process freeze
-    # after sweep(), ADVICE r4).
+    # after sweep()).
     apply(best, cfg)
     best["seconds_per_frame"] = t_best
     return best
@@ -213,8 +198,8 @@ def main():
     ap.add_argument("--quick", action="store_true")
     ap.add_argument("--scene", default="bunny")
     ap.add_argument("--cpu", action="store_true",
-                    help="plumbing smoke off-chip (tiny shapes, numbers "
-                         "meaningless)")
+                    help="plumbing smoke on the CPU (tiny shapes, "
+                         "numbers meaningless)")
     args = ap.parse_args()
     import jax
 

@@ -54,10 +54,9 @@ def _u32(x) -> jnp.ndarray:
 
 def u32_to_f32_exact(s: jnp.ndarray) -> jnp.ndarray:
     """uint32 -> float32 with the same round-to-nearest as a direct
-    convert, but WITHOUT a u32->f32 cast op: Mosaic on this TPU backend
-    cannot lower that cast, so the value goes through two exact i32
-    halves (hi*2^16 is exact in f32 and the final add rounds once —
-    bit-identical to the direct conversion)."""
+    convert, but WITHOUT a u32->f32 cast op: the value goes through two
+    exact i32 halves (hi*2^16 is exact in f32 and the final add rounds
+    once — bit-identical to the direct conversion)."""
     lo = (s & _u32(0xFFFF)).astype(jnp.int32).astype(jnp.float32)
     hi = (s >> _u32(16)).astype(jnp.int32).astype(jnp.float32)
     return hi * jnp.float32(65536.0) + lo

@@ -1,12 +1,9 @@
 """Structure-of-arrays 3-vectors: a V3 is three same-shaped arrays.
 
-Why this exists (measured, notes/tpu_measurements.md): a float32 array
-of shape (R, 3) puts the 3-component axis on the TPU's 128-wide lane
-dimension, so every elementwise op wastes 125/128 lanes and every
-fusion-boundary round-trip pays layout padding — an (R, 3)-styled
-megakernel body measured 16.5 ms/iteration at 65k lanes where the
-per-component (R,) form of the same body measured 1.7 ms. All hot
-device code therefore carries vectors as V3 (x, y, z) pytrees of (R,)
+Why this exists: a float32 array of shape (R, 3) puts the 3-component
+axis innermost, so every elementwise op works on strided triples and
+every component slice is a gather-like access. All hot device code
+therefore carries vectors as V3 (x, y, z) pytrees of contiguous (R,)
 arrays; (..., 3) arrays appear only at API boundaries (camera rays in,
 radiance images out).
 

@@ -1,6 +1,6 @@
 """Vector math on (..., 3) float32 arrays.
 
-TPU-native counterpart of the reference's scalar helpers: host float3
+Array counterpart of the reference's scalar helpers: host float3
 operators (src/math.hpp:97-179) and the device helpers in
 src/Trace.cl:80-156 (lerp3, makeRotation, mul_mat_vec, transpose_mat,
 WorldToLocalRay, LocalToWorldHit) plus the optics helpers at
@@ -101,13 +101,28 @@ def euler_rotation(
 
 def rotate(m: jnp.ndarray, v: jnp.ndarray) -> jnp.ndarray:
     """mul_mat_vec(m, v): each output component is dot(row_i, v)
-    (Trace.cl:105-107). m: (..., 3, 3), v: (..., 3)."""
-    return jnp.einsum("...ij,...j->...i", m, v)
+    (Trace.cl:105-107). m: (..., 3, 3), v: (..., 3).
+
+    Written as explicit f32 multiply-adds in the reference's order, not
+    as a matrix product: a dot may run at reduced (TF32) precision on a
+    GPU's tensor cores."""
+    v0, v1, v2 = v[..., 0], v[..., 1], v[..., 2]
+    return jnp.stack(
+        [m[..., i, 0] * v0 + m[..., i, 1] * v1 + m[..., i, 2] * v2
+         for i in range(3)],
+        axis=-1,
+    )
 
 
 def rotate_t(m: jnp.ndarray, v: jnp.ndarray) -> jnp.ndarray:
-    """mul_mat_vec(transpose(m), v) without materialising the transpose."""
-    return jnp.einsum("...ji,...j->...i", m, v)
+    """mul_mat_vec(transpose(m), v) without materialising the transpose
+    (explicit multiply-adds, as in ``rotate``)."""
+    v0, v1, v2 = v[..., 0], v[..., 1], v[..., 2]
+    return jnp.stack(
+        [m[..., 0, i] * v0 + m[..., 1, i] * v1 + m[..., 2, i] * v2
+         for i in range(3)],
+        axis=-1,
+    )
 
 
 def hsv2rgb(h: jnp.ndarray, s: jnp.ndarray, v: jnp.ndarray):

@@ -15,9 +15,8 @@ jax.sharding.Mesh over the visible chips. Two logical axes:
                  sequence-sharding + reduce; requires the decorrelated
                  seed mode).
 
-On a multi-host pod, initialise jax.distributed first; the mesh then
-spans all hosts and the tile axis rides ICI within a slice and DCN
-across slices.
+On several hosts, initialise jax.distributed first; the mesh then
+spans all hosts.
 """
 
 from __future__ import annotations
@@ -44,12 +43,9 @@ def device_inventory() -> List[dict]:
             "kind": getattr(d, "device_kind", "?"),
             "process": d.process_index,
         }
-        try:
-            stats = d.memory_stats() or {}
-            if "bytes_limit" in stats:
-                rec["memory_gb"] = round(stats["bytes_limit"] / 2**30, 2)
-        except Exception:
-            pass
+        stats = d.memory_stats() or {}
+        if "bytes_limit" in stats:
+            rec["memory_gb"] = round(stats["bytes_limit"] / 2**30, 2)
         out.append(rec)
     return out
 

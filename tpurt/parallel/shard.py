@@ -1,11 +1,11 @@
 """Multi-chip frame rendering via shard_map.
 
-The TPU-native replacement for the reference's host-threaded dynamic
+The SPMD replacement for the reference's host-threaded dynamic
 tile work queue (src/image.hpp:280-350): instead of one std::thread per
 device popping (tileX, tileY) under a mutex and reading frames back
 over PCIe, the frame is decomposed statically over the device mesh and
 every chip runs the same jitted program on its shard — no host in the
-loop, no mutexes, results assembled by XLA's collectives over ICI.
+loop, no mutexes, results assembled by XLA's collectives.
 
 Decomposition:
   * ``tile`` axis: contiguous row blocks of the image. Each device owns
@@ -35,10 +35,6 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 from jax.sharding import Mesh, PartitionSpec as P
-try:  # jax >= 0.4.35 promotes shard_map out of experimental
-    from jax import shard_map
-except ImportError:  # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map
 
 from tpurt.config import RenderConfig
 from tpurt.core.camera import Camera
@@ -53,21 +49,6 @@ from tpurt.scene.types import Scene
 
 def _padded_rows(height: int, n_tile: int) -> int:
     return -(-height // n_tile) * n_tile
-
-
-def _shardmap_kwargs():
-    """Replication checking off: the megakernel's while_loop carry
-    starts from replicated constants that become device-varying inside
-    the loop, which the checker (check_rep on older jax, check_vma on
-    jax >= 0.8) would demand explicit pcasts for."""
-    import inspect
-
-    params = inspect.signature(shard_map).parameters
-    if "check_vma" in params:
-        return {"check_vma": False}
-    if "check_rep" in params:
-        return {"check_rep": False}
-    return {}
 
 
 @functools.partial(
@@ -105,19 +86,21 @@ def _render_sharded_impl(
             subpixel_jitter=cfg.subpixel_jitter,
             engine=cfg.engine,
             dense_engine=cfg.dense_engine,
-            body_backend=cfg.mega_body,
         )
         if n_sample > 1:
             # Mean of per-shard means over equal shares == global mean.
             block = lax.psum(block, SAMPLE_AXIS) / jnp.float32(n_sample)
         return block
 
-    return shard_map(
+    return jax.shard_map(
         worker,
         mesh=mesh,
         in_specs=(P(), P(), P()),  # scene, camera, frame replicated
         out_specs=P(TILE_AXIS, None, None),
-        **_shardmap_kwargs(),
+        # Replication checking off: the megakernel's while_loop carry
+        # starts from replicated constants that become device-varying
+        # inside the loop, which the checker would demand pcasts for.
+        check_vma=False,
     )(scene, camera, jnp.int32(frame_index))
 
 
@@ -143,10 +126,9 @@ def _render_sharded_flat_impl(
     replicate_out: bool = False,
 ):
     """Sharded render through the megakernel FLAT fast path — the same
-    quota/Pallas-body machinery bench.py times, per shard (the round-2
-    sharded path routed shards through the tile renderer, which had none
-    of it). The frame is decomposed into n_tile * blocks_per_dev flat
-    row-major pixel blocks assigned ROUND-ROBIN: device ti owns blocks
+    quota machinery bench.py times, per shard. The frame is decomposed
+    into n_tile * blocks_per_dev flat row-major pixel blocks assigned
+    ROUND-ROBIN: device ti owns blocks
     {ti, ti + n_tile, ti + 2*n_tile, ...}. blocks_per_dev > 1
     over-decomposes the tile axis so non-uniform block cost (a
     glass-heavy region) spreads across chips instead of straggling one —
@@ -197,18 +179,18 @@ def _render_sharded_flat_impl(
             # Multi-process meshes: every host must end up holding the
             # whole frame (np.asarray of a partially-addressable global
             # array is an error), so the disjoint shards ride one
-            # all_gather over the tile axis — the DCN/ICI analog of the
+            # all_gather over the tile axis — the collective analog of the
             # reference's host-merged tile buffer (image.hpp:255-277).
             out = lax.all_gather(out, TILE_AXIS, axis=0, tiled=True)
         return out, segs
 
-    return shard_map(
+    return jax.shard_map(
         worker,
         mesh=mesh,
         in_specs=(P(), P(), P()),
         out_specs=(
             (P() if replicate_out else P(TILE_AXIS, None, None)), P()),
-        **_shardmap_kwargs(),
+        check_vma=False,  # as in _render_sharded_impl
     )(scene, camera, jnp.int32(frame_index))
 
 
@@ -225,7 +207,7 @@ def render_frame_sharded(
     """Full-frame mean radiance (H, W, 3) float32 over the device mesh.
 
     With the mega engine the frame runs through the flat fast path per
-    shard (quota + Pallas body — the same code path bench.py times);
+    shard (quota machinery — the same code path bench.py times);
     seeds are pure functions of absolute pixel index, so the result is
     bitwise-identical to the single-chip render for ANY decomposition.
 

@@ -1,6 +1,6 @@
-"""Plücker-form dense Möller-Trumbore on the MXU.
+"""Plücker-form dense Möller-Trumbore as a matrix product.
 
-The TPU-native dense-sweep engine (counterpart of the reference's
+The fast dense-sweep engine (counterpart of the reference's
 all-triangles case inside RayTriangleBVH leaves and of small-scene
 rendering, src/Trace.cl:276-317 + 351-358): Möller-Trumbore is
 algebraically refactored so that all four per-candidate decision
@@ -15,14 +15,13 @@ against per-triangle constant columns:
     v_num = w . e1        - d . (pa x e1)
     t_num = o . Ng - pa . Ng          (Ng = e1 x e2)
 
-so an (R rays x T tris) sweep becomes ONE (R,16)x(16,4T) GEMM on the
-MXU — measured at ~180 Gpairs/s on v5e vs ~1.9 Gpairs/s for the
-broadcast elementwise form (notes/tpu_measurements.md). With the
-(R,4T) epilogue (accept tests + running min) streaming through HBM the
-end-to-end rate is ~25 Gpairs/s — still ~13x the exact VPU sweep.
+so an (R rays x T tris) sweep becomes ONE (R,16)x(16,4T) matrix
+product; the (R,4T) epilogue (accept tests + running min) is
+elementwise.
 
-Precision: the GEMM runs at precision='highest' (6-pass bf16 = f32
-faithful); u/v/t come out within ~1 ulp of the sequential form but are
+Precision: the product runs at precision='highest' (f32, never a
+reduced-precision matrix unit); u/v/t come out within ~1 ulp of the
+sequential form but are
 NOT bit-identical (different summation order), so this is the FAST
 dense engine (RenderConfig.dense_engine='plucker'), not the parity
 anchor. Acceptance knife-edges (1-ulp u/v/t boundaries) and the
@@ -33,8 +32,8 @@ only where a silhouette's smooth normal flips against the face normal.
 The WINNER's shading data (normal/backface) is recomputed exactly by
 the caller (intersect._finalize_local), as in the exact path.
 
-The feature vector is padded 10 -> 16 columns: K=16 keeps the MXU
-pipeline shape-friendly and the pad columns are zero.
+The feature vector is padded 10 -> 16 columns; the pad columns are
+zero.
 """
 
 from __future__ import annotations
@@ -75,7 +74,7 @@ def component_rows(pa, e1, e2, ng):
     """The four per-triangle coefficient blocks, each (10, T) f32, in
     the feature basis [d, w=d x o, o, 1] (rows 0:3 d, 3:6 w, 6:9 o,
     9 const). Shared by the chunked XLA sweep (PluckerTable) and the
-    fused Mosaic sweep (render/plucker_fused.py)."""
+    fused dense sweep (render/plucker_fused.py)."""
     t = pa.shape[0]
 
     def col3(x):  # (T,3) -> (3, T)

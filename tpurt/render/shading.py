@@ -6,13 +6,12 @@ loop and the persistent-lane megakernel), so their RNG consumption and
 arithmetic agree bit-for-bit by construction.
 
 Materials are fetched with a select chain over the (small, static) mesh
-count instead of gathers: on this TPU backend a gather op inside a loop
-costs ~0.2-0.35ms across lanes regardless of width, while K broadcast
-selects are ordinary fused VPU ops.
+count instead of gathers: K broadcast selects are ordinary fused
+elementwise ops.
 
 The core (``shade_hit_soa``) carries vectors as tpurt.core.v3.V3
-component triples — the measured-fast layout on TPU (see v3.py's
-module docstring) — and ``shade_hit`` is the (R, 3)-layout wrapper used
+component triples (see v3.py's module docstring) — and ``shade_hit``
+is the (R, 3)-layout wrapper used
 by the modular engine. Both produce bit-identical results (the wrapper
 only repacks components).
 """
@@ -55,9 +54,8 @@ class ShadeResult(NamedTuple):
 
 
 # Packed material table columns (pack_materials): mat_type rides as f32
-# (values 0-4 are exact), everything else is f32 anyway. The packed form
-# exists so the same select chain reads from a jnp array (XLA) or an
-# SMEM ref (Pallas) — both support scalar [i, c] indexing.
+# (values 0-4 are exact), everything else is f32 anyway. The select
+# chain reads it by scalar [i, c] indexing.
 MAT_TYPE, MAT_IOR = 0, 1
 MAT_COLOR, MAT_EMC = 2, 5  # 3 columns each
 MAT_EMS, MAT_REFL, MAT_SPEC = 8, 9, 10
@@ -84,8 +82,8 @@ def pack_materials(scene: Scene) -> jnp.ndarray:
 def select_material_soa(mats, num_meshes: int, mesh_idx: jnp.ndarray,
                         mat_slots=None):
     """Gather-free material fetch: chain of broadcast selects over the
-    static mesh count. ``mats`` is the (K, 11) pack_materials table (a
-    jnp array or a Pallas ref slice-reader). Returns per-lane material
+    static mesh count. ``mats`` is the (K, 11) pack_materials table (any
+    scalar-[i, c]-indexable reader). Returns per-lane material
     fields (colors as V3); mtype stays f32 (exact small ints).
 
     ``mat_slots`` — a static (mesh->slot tuple, slot->rep-mesh tuple)
@@ -93,15 +91,13 @@ def select_material_soa(mats, num_meshes: int, mesh_idx: jnp.ndarray,
     mat_slot_rep) — switches to a two-level fetch: one O(K) single-i32
     select chain maps the mesh to its slot, then the 11 field chains
     run over the U unique materials only (O(K + 11U) ops instead of
-    O(11K)). This is what keeps the Pallas body compiling at large
+    O(11K)). This is what keeps the loop body compact at large
     instance counts (the TLAS regime): instanced scenes share a
     handful of materials across hundreds of meshes.
 
     Otherwise, above SELECT_GATHER_THRESHOLD meshes the chain becomes
     one real gather of the transposed table — (11, R) so every fetched
-    column is a contiguous lane vector (the (R, 11) AoS orientation
-    wastes 125/128 VPU lanes). XLA-body only; the megakernel forces
-    that regime (Mosaic cannot lower a dynamic gather)."""
+    column is a contiguous lane vector."""
     from tpurt.config import SELECT_GATHER_THRESHOLD
 
     if mat_slots is not None:
@@ -197,7 +193,7 @@ def select_material(scene: Scene, mesh_idx: jnp.ndarray):
 
 
 def shade_hit_soa(
-    mats,  # (K, 11) pack_materials table (jnp array or Pallas ref)
+    mats,  # (K, 11) pack_materials table
     num_meshes: int,
     enabled: jnp.ndarray,  # (R,) bool — lanes taking a shade step now
     hit_valid: jnp.ndarray,
@@ -229,8 +225,8 @@ def shade_hit_soa(
         return present is None or int(mt) in present
 
     def _falses(like):
-        # Lane-shaped all-False via an i32 compare (Mosaic cannot lower
-        # a bool-dtype splat — see megakernel._bool_full).
+        # Lane-shaped all-False via an i32 compare (see
+        # megakernel._bool_full).
         return jnp.zeros(like.shape, jnp.int32) != 0
 
     mtype, ior, color, em_color, em_strength, refl, spec_prob = (

@@ -86,10 +86,9 @@ def _bf16_dir(vals, up: bool) -> np.ndarray:
 
 
 #: Unified megakernel row width (node rows use [0:7+3*MEGA_ARITY], leaf
-#: rows [0:19*MEGA_LEAF_TRIS]). The gather engine is row-count-bound and
-#: row-width-FREE up to 160 f32 (notes/tpu_measurements.md), so rows are
-#: sized to the free maximum: wider fanout + fatter leaves = fewer rows
-#: visited per path segment, which is the traversal currency.
+#: rows [0:19*MEGA_LEAF_TRIS]). Wider fanout + fatter leaves = fewer
+#: rows visited per path segment, at more gathered bytes per row; the
+#: default layout (config.MEGA_LEAF_TRIS / MEGA_NODE_ARITY) is narrower.
 MEGA_ROW_WIDTH = 160
 #: Children per node row.
 MEGA_ARITY = 32
@@ -99,18 +98,16 @@ def mega_row_width(leaf_tris: int, bounds_fmt: str = "u8",
                    arity: int = None) -> int:
     """Bank row width for a leaf capacity: 19 f32 per inline triangle;
     node rows need 7 + 3*MEGA_ARITY words (u8 bounds) or 7 + 4*
-    MEGA_ARITY (bf16). Rounded to a multiple of 8; never 256 (a
-    measured-pathological gather tiling case, notes r8). leaf_tris < 8
-    narrows the bank below 160 — iterations are segment-pipeline-bound,
-    not leaf-step-bound (probe r59b), so smaller leaves trade free
-    extra leaf rows for fewer gathered bytes per iteration (leaf5/u8 =
-    W104: probes r61/r63)."""
+    MEGA_ARITY (bf16). Rounded to a multiple of 8; past 160, to a
+    multiple of 64 that is never 256. leaf_tris < 8 narrows the bank
+    below 160: smaller leaves trade extra leaf rows for fewer gathered
+    bytes per iteration."""
     arity = arity or MEGA_ARITY
     node_w = 7 + (4 if bounds_fmt == "bf16" else 3) * arity
     w = max(19 * leaf_tris, node_w)
     w = -(-w // 8) * 8
     if leaf_tris >= 8:
-        w = max(w, MEGA_ROW_WIDTH)  # the measured W=160 anchor layout
+        w = max(w, MEGA_ROW_WIDTH)  # the W=160 anchor layout
     if w > 160:
         w = -(-w // 64) * 64
         if w == 256:
@@ -125,7 +122,7 @@ MEGA_LEAF_TRIS = 8
 MEGA_SLOT_BITS = 6
 #: Triangle budget for the inline static stage: identity-transform
 #: meshes whose combined size fits are MT-tested densely in the shade
-#: iteration (VPU work paid once per iteration) instead of traversed.
+#: iteration (elementwise work paid once per iteration) instead of traversed.
 MEGA_STATIC_MAX_TRIS = 64
 
 
@@ -207,9 +204,8 @@ def _emit_mega_subtree(rows, nodes, root, tri_pos, tri_nrm, tri_mesh,
                        row_width: int = None, arity: int = None):
     """Emit a BVH2 subtree as MEGA_ARITY-wide megakernel rows.
 
-    The TPU gather engine is row-granular (~110-207M rows/s regardless
-    of row width up to 160 f32), so the traversal currency is ROWS
-    VISITED. A node row packs 16 children's bounds; a leaf row carries
+    The traversal currency is ROWS VISITED (one row gather per lane per
+    iteration). A node row packs 16 children's bounds; a leaf row carries
     up to 8 inline exact triangles (subtrees with <= 8 triangles
     collapse into one leaf row regardless of the binary leaf cap).
 
@@ -912,8 +908,8 @@ class SceneBuilder:
             # Many-instance regime: entries become DATA — one instance
             # row per mesh (transform baked at freeze) under a world-
             # space top-level BVH; the chain gets ONE (-2) entry. The
-            # unrolled per-entry enter/pretest stages (and the crashing
-            # K>64 many-gather regime, probe r62) are never emitted.
+            # unrolled per-entry enter/pretest stages (and the K>64
+            # many-gather regime) are never emitted.
             assert row_width >= MEGA_INST_ROW_WORDS, (
                 f"bank width {row_width} cannot hold an instance row"
             )

@@ -3,25 +3,31 @@
 The reference keeps the scene in mutable host globals — ``meshList``,
 ``triangleList``, ``nodeList`` (src/readobj.hpp:91-94) — uploaded to
 per-device OpenCL buffers (src/image.hpp:97-175) as arrays of padded
-structs (float3 == float4, 16 B). The TPU design dissolves those structs
+structs (float3 == float4, 16 B). This design dissolves those structs
 into struct-of-arrays jnp fields: each float3 member becomes an (N, 3)
-float32 array, so VPU lanes stream each component contiguously and no
-padding semantics leak into goldens.
+float32 array, and no padding semantics leak into goldens.
 
-``Scene`` is a flax.struct dataclass: array fields are pytree leaves
-(donatable, shardable), while static metadata (max leaf size, per-mesh
-triangle ranges) rides in the treedef so jit specialises on it.
+``Scene`` is a frozen dataclass registered as a pytree: array fields
+are leaves (donatable, shardable), while static metadata (max leaf
+size, per-mesh triangle ranges) rides in the treedef so jit
+specialises on it.
 
 Material enum values mirror MaterialType (src/Trace.cl:28-34).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import enum
 from typing import Tuple
 
+import jax
 import jax.numpy as jnp
-from flax import struct
+
+
+def _static(default):
+    """A metadata field: part of the treedef, not a leaf."""
+    return dataclasses.field(default=default, metadata={"static": True})
 
 
 class MaterialType(enum.IntEnum):
@@ -34,7 +40,7 @@ class MaterialType(enum.IntEnum):
     ONE_SIDED = 4
 
 
-@struct.dataclass
+@dataclasses.dataclass(frozen=True)
 class Scene:
     """Frozen device-side scene.
 
@@ -62,14 +68,13 @@ class Scene:
     # Threaded (stackless) traversal links, precomputed per mesh subtree:
     # on AABB hit of an internal node continue at node_hit (= first
     # child); on miss or after a leaf continue at node_miss; -1 ends the
-    # walk. A TPU-first replacement for the reference's per-thread
+    # walk. A lane-parallel replacement for the reference's per-thread
     # 64-entry traversal stack (Trace.cl:319-397).
     node_hit: jnp.ndarray  # (M,) i32
     node_miss: jnp.ndarray  # (M,) i32
 
-    # Gather-packed mirrors for the traversal hot loop. TPU gathers run
-    # at only a few Gelement/s (measured ~2-7 on v5e via XLA), so the
-    # walk's cost is the number of gathered ELEMENTS per step. Node rows
+    # Gather-packed mirrors for the traversal hot loop: the walk's cost
+    # is the number of gathered ELEMENTS per step. Node rows
     # are 5 floats: AABB bounds quantised to uint16 on a per-mesh grid
     # (conservative — decoded boxes always contain the true box, so
     # traversal may visit slightly more nodes but images are identical;
@@ -85,10 +90,10 @@ class Scene:
     mesh_qscale: jnp.ndarray  # (K, 3) f32 quantisation cell size
 
     # Megakernel row bank: an 8-wide BVH encoding sized for the
-    # persistent-lane integrator. The TPU gather engine is row-granular
-    # (~175M rows/s regardless of row width), so the traversal currency
-    # is ROWS VISITED: an 8-wide node packs eight children's uint8-
-    # quantised boxes (per-node grid, conservative) plus their targets
+    # persistent-lane integrator. The traversal currency is ROWS
+    # VISITED (one row gather per step): an 8-wide node packs eight
+    # children's uint8-quantised boxes (per-node grid, conservative)
+    # plus their targets
     # into ONE row, and leaf rows carry both triangles inline, exact
     # f32. Node and leaf rows share one bank so each traversal step is
     # exactly one gather. Layouts in scene/builder._emit_mega_subtree.
@@ -125,67 +130,54 @@ class Scene:
 
     # --- static metadata (part of the treedef, jit-specialised) ---
     #: Largest leaf size across all BVHs; bounds the masked leaf loop.
-    max_leaf_tris: int = struct.field(pytree_node=False, default=2)
+    max_leaf_tris: int = _static(2)
     #: (first_tri, num_tris) per mesh — lets the integrator brute-force
     #: small meshes over a static triangle range.
-    mesh_tri_ranges: Tuple[Tuple[int, int], ...] = struct.field(
-        pytree_node=False, default=()
-    )
+    mesh_tri_ranges: Tuple[Tuple[int, int], ...] = _static(())
     #: Megakernel traversal chain: ((mesh_idx, root_row, root_is_leaf),
     #: ...) with mesh_idx == -1 for the combined static-geometry entry.
-    mega_chain: Tuple[Tuple[int, int, bool], ...] = struct.field(
-        pytree_node=False, default=()
-    )
+    mega_chain: Tuple[Tuple[int, int, bool], ...] = _static(())
     #: Member mesh ids per mega_chain entry: (i,) for a regular entry,
     #: the fused static-geometry members for a -1 entry. Lets the dense
     #: megakernel (render/plucker_fused.py) rebuild each entry's
     #: triangle set from mesh_tri_ranges without re-deriving the
     #: freeze-time routing.
-    mega_chain_members: Tuple[Tuple[int, ...], ...] = struct.field(
-        pytree_node=False, default=()
-    )
+    mega_chain_members: Tuple[Tuple[int, ...], ...] = _static(())
     #: Register-file traversal stack entries needed for the deepest
     #: 8-wide subtree (static; sets the megakernel's shift-chain length).
-    mega_stack_depth: int = struct.field(pytree_node=False, default=8)
+    mega_stack_depth: int = _static(8)
     #: Material type per mesh as known at freeze time (static mirror of
     #: mat_type, used only to ROUTE meshes between the fused sweep and
     #: the per-mesh path — OneSided meshes need per-mesh closest-hit
     #: semantics: the reference rejects a OneSided mesh's contribution
     #: only after that mesh's own query, Trace.cl:466-471).
-    mesh_mat_types: Tuple[int, ...] = struct.field(pytree_node=False, default=())
+    mesh_mat_types: Tuple[int, ...] = _static(())
     #: Backface-cull / one-sided policy per inline static triangle
     #: (static: known from the owner material at freeze).
-    mega_static_cull: Tuple[bool, ...] = struct.field(
-        pytree_node=False, default=()
-    )
-    mega_static_onesided: Tuple[bool, ...] = struct.field(
-        pytree_node=False, default=()
-    )
+    mega_static_cull: Tuple[bool, ...] = _static(())
+    mega_static_onesided: Tuple[bool, ...] = _static(())
     #: Owner mesh id per inline static triangle (static twin of the
     #: bitcast-i32 word in column 18 of mega_static_rows — kept static
-    #: so the hot loop needs no scalar bitcast, which Mosaic cannot
-    #: lower).
-    mega_static_owner: Tuple[int, ...] = struct.field(
-        pytree_node=False, default=()
-    )
+    #: so the hot loop needs no scalar bitcast).
+    mega_static_owner: Tuple[int, ...] = _static(())
     #: True where the instance transform was identity at freeze time
     #: (pos=0, angles=0, scale=1 — e.g. the Cornell quads, which addQuad
     #: leaves untransformed, readobj.hpp:393). The intersector fuses all
     #: identity small meshes into one world-space brute-force sweep.
-    mesh_identity: Tuple[bool, ...] = struct.field(pytree_node=False, default=())
+    mesh_identity: Tuple[bool, ...] = _static(())
     #: Node-row child-bounds encoding of mega_rows: "u8" (uint8 on a
     #: per-node grid, 3 words/slot at stride 3) or "bf16" (absolute
     #: conservative bf16, 4 words/slot at stride 4) — see
     #: builder._emit_mega_subtree. Static: selects the decode the
     #: megakernel's node branch compiles.
-    mega_bounds_fmt: str = struct.field(pytree_node=False, default="u8")
+    mega_bounds_fmt: str = _static("u8")
     #: Inline exact triangles per leaf row in mega_rows (builder
     #: MEGA_LEAF_TRIS / config override; the kernel's leaf loop is
     #: unrolled to this static count).
-    mega_leaf_tris: int = struct.field(pytree_node=False, default=8)
+    mega_leaf_tris: int = _static(8)
     #: Children per node row in mega_rows (builder MEGA_ARITY /
     #: config.MEGA_NODE_ARITY override; static in the kernel).
-    mega_arity: int = struct.field(pytree_node=False, default=32)
+    mega_arity: int = _static(32)
     #: Instance-level acceleration (TLAS): True when freeze routed the
     #: non-identity meshes through a top-level BVH of INSTANCE ROWS in
     #: mega_rows (the many-instance regime, builder MEGA_TLAS_THRESHOLD)
@@ -194,29 +186,23 @@ class Scene:
     #: (-2, tlas_root, False) entry covering every instanced mesh.
     #: Instance transforms are BAKED into the rows at freeze — post-
     #: freeze transform edits (anim.set_mesh_yaw) require a re-freeze.
-    mega_tlas: bool = struct.field(pytree_node=False, default=False)
+    mega_tlas: bool = _static(False)
     #: World-space union bounds of all TLAS instances
     #: (lo.xyz + hi.xyz, 6 floats) — the -2 chain entry's root pretest
     #: box. Empty when mega_tlas is False.
-    mega_tlas_bounds: Tuple[float, ...] = struct.field(
-        pytree_node=False, default=()
-    )
+    mega_tlas_bounds: Tuple[float, ...] = _static(())
     #: Freeze-time material DEDUP: per-mesh slot index into the unique
     #: materials (mesh_mat_slot, length K) and each slot's
     #: REPRESENTATIVE mesh (mat_slot_rep, length U) whose pack_materials
     #: row carries the slot's values. Lets the shade-time fetch run
     #: O(K + 11U) selects instead of O(11K) — the piece that keeps the
-    #: Pallas body compiling for many-instance (TLAS) scenes where
+    #: loop body compact for many-instance (TLAS) scenes where
     #: hundreds of meshes share a handful of materials. viewer
     #: recolor_mesh re-slots a tinted mesh (see its docstring). Empty
     #: tuples on scenes frozen before this field existed (per-mesh
     #: fetch, the conservative default).
-    mesh_mat_slot: Tuple[int, ...] = struct.field(
-        pytree_node=False, default=()
-    )
-    mat_slot_rep: Tuple[int, ...] = struct.field(
-        pytree_node=False, default=()
-    )
+    mesh_mat_slot: Tuple[int, ...] = _static(())
+    mat_slot_rep: Tuple[int, ...] = _static(())
 
     @property
     def num_triangles(self) -> int:
@@ -229,3 +215,15 @@ class Scene:
     @property
     def num_meshes(self) -> int:
         return self.mesh_root.shape[0]
+
+    def replace(self, **kw) -> "Scene":
+        return dataclasses.replace(self, **kw)
+
+
+jax.tree_util.register_dataclass(
+    Scene,
+    data_fields=[f.name for f in dataclasses.fields(Scene)
+                 if not f.metadata.get("static")],
+    meta_fields=[f.name for f in dataclasses.fields(Scene)
+                 if f.metadata.get("static")],
+)
